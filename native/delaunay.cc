@@ -1,4 +1,4 @@
-// Native runtime kernels for the TPU deformable-reconstruction framework.
+// Native runtime kernels of the deformable-reconstruction framework.
 //
 // 2D Delaunay triangulation (Bowyer-Watson) of the landmark cloud's (x, y)
 // projection -- the host-side meshing step feeding the ARAP solver. Fills the

@@ -96,3 +96,29 @@ def test_relative_edge_errors_zero_for_translation():
         jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(ctx.nbr), jnp.asarray(ctx.nbr_mask)
     )
     np.testing.assert_allclose(np.asarray(err), 0.0, atol=2e-5)
+
+
+def test_host_rotations_match_device_rotations():
+    """The float64 host snapshot and the f32 device kernel agree wherever
+    the neighbourhood determines the rotation."""
+    p1 = make_surface(seed=3)
+    w = np.array([0.1, -0.2, 0.05])
+    Q = np.asarray(lie.so3_exp(jnp.asarray(w)))
+    rng = np.random.default_rng(3)
+    p2 = p1 @ Q.T + rng.normal(scale=5e-4, size=p1.shape)
+    ctx = mesh.build_mesh_context(p1)
+    R_dev = np.asarray(arap.compute_rotations(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(ctx.nbr), jnp.asarray(ctx.nbr_mask),
+        jnp.asarray(ctx.weights)))
+    R_host = arap.compute_rotations_host(p1, p2, ctx.nbr, ctx.nbr_mask, ctx.weights)
+    np.testing.assert_allclose(R_host, R_dev, atol=1e-4)
+    np.testing.assert_allclose(np.linalg.det(R_host), 1.0, atol=1e-12)
+
+
+def test_host_rotations_identity_without_neighbours():
+    p1 = make_surface(seed=4)
+    ctx = mesh.build_mesh_context(p1)
+    mask = np.asarray(ctx.nbr_mask).copy()
+    mask[0] = False
+    R = arap.compute_rotations_host(p1, p1 + 0.01, ctx.nbr, mask, ctx.weights)
+    np.testing.assert_array_equal(R[0], np.eye(3))

@@ -126,3 +126,42 @@ def test_inv6_spd_matches_linalg_inv():
             err = np.abs(eye - np.eye(6)).max()
             assert err < 5e-4, (scale, lam, err)
             assert np.allclose(got, want, rtol=2e-3, atol=1e-6 / scale**2), (scale, lam)
+
+
+def _fixture_system(n_side):
+    data, state0, hyper, _ = make_problem(n_side=n_side)
+    sys_ = block_system.build_block_system("KB8", data, hyper, state0)
+    g = block_system.flat_gradient(sys_)
+    lam = 1e-4 * float(jnp.max(block_system.diag_of(sys_)))
+    return data, state0, hyper, sys_, g, lam
+
+
+def test_pcg_flex_matches_dense_solve_on_fixture():
+    """Block-Jacobi PCG on the assembled fixture operator lands on the
+    dense damped solve (numpy f64 of the dense f32 H)."""
+    data, state0, hyper, sys_, g, lam = _fixture_system(6)
+    mv = lambda v: block_system.block_matvec(sys_, data.nbr, v, lam)
+    x = block_system.pcg_flex(mv, -g, block_system.block_jacobi_apply(sys_, lam), 200, rtol=1e-6)
+    H, _ = deformable.build_system("KB8", data, hyper, state0)
+    A = np.asarray(H, np.float64) + lam * np.eye(H.shape[0])
+    want = np.linalg.solve(A, -np.asarray(g, np.float64))
+    assert np.linalg.norm(np.asarray(x) - want) / np.linalg.norm(want) < 1e-3
+    r = np.asarray(mv(x) + g)
+    assert np.linalg.norm(r) <= 1e-4 * float(np.linalg.norm(np.asarray(g)))
+
+
+def test_pcg_flex_iteration_cap():
+    """``iters`` is a hard cap: one iteration is exactly one preconditioned
+    steepest-descent step from zero, and zero iterations return zero."""
+    data, _, _, sys_, g, lam = _fixture_system(5)
+    mv = lambda v: block_system.block_matvec(sys_, data.nbr, v, lam)
+    pre = block_system.block_jacobi_apply(sys_, lam)
+    b = -g
+    x0 = block_system.pcg_flex(mv, b, pre, 0, rtol=1e-12)
+    assert float(jnp.max(jnp.abs(x0))) == 0.0
+    x1 = block_system.pcg_flex(mv, b, pre, 1, rtol=1e-12)
+    z = pre(b)
+    step = jnp.dot(b, z) / jnp.dot(z, mv(z))
+    np.testing.assert_allclose(np.asarray(x1), np.asarray(step * z), rtol=1e-5, atol=1e-12)
+    x64 = block_system.pcg_flex(mv, b, pre, 64, rtol=1e-12)
+    assert float(jnp.linalg.norm(mv(x64) - b)) < float(jnp.linalg.norm(mv(x1) - b))

@@ -2,7 +2,7 @@
 
 The conftest forces an 8-device virtual CPU platform, so these tests exercise
 real XLA partitioning (all-gathers for the ARAP neighbor reads, psums for the
-tangent reductions) without TPU hardware.
+tangent reductions) without accelerator hardware.
 """
 
 import jax

@@ -31,7 +31,7 @@ import numpy as np
 from ..ops import camera as cam_ops
 from ..ops import lie
 from ..ops import lm as lm_ops
-from ..precision import FP, TINY
+from ..precision import FP, MATMUL_PRECISION, TINY
 
 HUBER_BA = float(np.sqrt(5.99))  # thHuber2D (g2oBundleAdjustment.cc:57)
 CHI2_OUTLIER = 5.991
@@ -59,8 +59,8 @@ def _apply_delta(state: BAState, delta: jnp.ndarray) -> BAState:
     dxi = delta[: 6 * K].reshape(K, 6)
     dp = delta[6 * K : 6 * K + 3 * M].reshape(M, 3)
     dR, dt = lie.se3_exp(dxi)
-    R = dR @ state.R
-    t = jnp.einsum("kij,kj->ki", dR, state.t) + dt
+    R = jnp.matmul(dR, state.R, precision=MATMUL_PRECISION)
+    t = jnp.einsum("kij,kj->ki", dR, state.t, precision=MATMUL_PRECISION) + dt
     return BAState(R=R, t=t, points=state.points + dp)
 
 
@@ -68,7 +68,7 @@ def _errors(cam_kind, data: BAData, state: BAState):
     p = state.points[data.obs_mp]
     R = state.R[data.obs_kf]
     t = state.t[data.obs_kf]
-    pc = jnp.einsum("eij,ej->ei", R, p) + t
+    pc = jnp.einsum("eij,ej->ei", R, p, precision=MATMUL_PRECISION) + t
     proj = cam_ops.project(cam_kind, data.cam_params, pc)
     return data.obs_uv - proj
 
@@ -118,9 +118,9 @@ def _build_system(cam_kind, data: BAData, state: BAState, robust):
     def local(x, R, t, p, uv, wi, pf):
         xi, dp = x[:6], x[6:9]
         dR, dt = lie.se3_exp(xi * pf)
-        Rk = dR @ R
-        tk = dR @ t + dt
-        pc = Rk @ (p + dp) + tk
+        Rk = jnp.matmul(dR, R, precision=MATMUL_PRECISION)
+        tk = jnp.matmul(dR, t, precision=MATMUL_PRECISION) + dt
+        pc = jnp.matmul(Rk, p + dp, precision=MATMUL_PRECISION) + tk
         return wi * (uv - cam_ops.project(cam_kind, data.cam_params, pc))
 
     x0 = jnp.zeros((E, 9), dtype=dtype)
@@ -135,8 +135,8 @@ def _build_system(cam_kind, data: BAData, state: BAState, robust):
 
     H = jnp.zeros((dim, dim), dtype=dtype)
     g = jnp.zeros((dim,), dtype=dtype)
-    Hblk = jnp.einsum("eri,erj->eij", L, L)
-    gblk = jnp.einsum("eri,er->ei", L, r)
+    Hblk = jnp.einsum("eri,erj->eij", L, L, precision=MATMUL_PRECISION)
+    gblk = jnp.einsum("eri,er->ei", L, r, precision=MATMUL_PRECISION)
     H = H.at[idx[:, :, None], idx[:, None, :]].add(Hblk)
     g = g.at[idx].add(gblk)
     return H, g

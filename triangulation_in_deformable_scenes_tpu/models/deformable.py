@@ -22,7 +22,7 @@ the LM iterations, exactly like the reference (mesh at
 but unused by the inner solve there -- the global term lives inside EdgeARAP
 with the ARAP information; we keep that behavior and signature).
 
-TPU design notes: the normal equations are assembled directly from per-edge
+Design notes: the normal equations are assembled directly from per-edge
 local Jacobian blocks (forward-mode AD, vmapped over edges) scattered into a
 dense H -- never by materializing the big J. All shapes are static in
 (N, K); the LM loop is a ``lax.scan`` (see ``ops/lm.py``). One jit
@@ -43,7 +43,7 @@ from ..ops import camera as cam_ops
 from ..ops import lie
 from ..ops import lm as lm_ops
 from ..ops import mesh as mesh_ops
-from ..precision import FP, TINY
+from ..precision import FP, MATMUL_PRECISION, TINY
 
 HUBER_DELTA = float(np.sqrt(100.991))  # deltaMono, g2oBundleAdjustment.cc:631
 
@@ -279,29 +279,36 @@ def _depth_errors(data: PairData, p, s, R, t, d, mode: str = "scaled"):
     return jnp.where(s <= 0.0, jnp.sqrt(500.0) * e, e)
 
 
+def _sq(v):
+    """Squared norm v . v of a 3-vector."""
+    return jnp.dot(v, v, precision=MATMUL_PRECISION)
+
+
 def _mesh_edge_energy_scalar(spec: ModelSpec, p1i, p2i, p1j, p2j, Ri, Rj, w, area, Rg, tg, alpha, beta):
     """Scalar mesh-edge energy for one directed edge (see ModelSpec)."""
     d1 = p1i - p1j
     d2 = p2i - p2j
     if spec.energy == "ARAP":
-        first = (d2 - Ri @ d1) / area
-        second = (-d2 - Rj @ (-d1)) / area
-        e = w * (first @ first + second @ second)
+        first = (d2 - jnp.matmul(Ri, d1, precision=MATMUL_PRECISION)) / area
+        second = (-d2 - jnp.matmul(Rj, -d1, precision=MATMUL_PRECISION)) / area
+        e = w * (_sq(first) + _sq(second))
     elif spec.energy == "Elastic":
-        l1 = jnp.sqrt(d1 @ d1 + TINY)
-        l2 = jnp.sqrt(d2 @ d2 + TINY)
+        l1 = jnp.sqrt(_sq(d1) + TINY)
+        l2 = jnp.sqrt(_sq(d2) + TINY)
         # Spring energy on edge-length change; the factor 2 mirrors the ARAP
         # edge's two (i and j) half-terms.
         e = 2.0 * w * ((l2 - l1) / area) ** 2
     else:  # Ogden
-        l1 = jnp.sqrt(d1 @ d1 + TINY)
-        l2 = jnp.sqrt(d2 @ d2 + TINY)
+        l1 = jnp.sqrt(_sq(d1) + TINY)
+        l2 = jnp.sqrt(_sq(d2) + TINY)
         lam = l2 / l1
         W = (lam**alpha + lam ** (-alpha * beta) - 2.0) / jnp.maximum(alpha, 1e-6)
         e = w * W * (l1 / area) ** 2
     if spec.use_global:
-        g = (Rg @ p2i - tg - p1i) + (Rg @ p2j - tg - p1j)
-        e = e + g @ g
+        g = (jnp.matmul(Rg, p2i, precision=MATMUL_PRECISION) - tg - p1i) + (
+            jnp.matmul(Rg, p2j, precision=MATMUL_PRECISION) - tg - p1j
+        )
+        e = e + _sq(g)
     return e
 
 
@@ -458,8 +465,8 @@ def _scatter_system(H, g, L, r, idx):
     L: [M, rdim, d] local Jacobians; r: [M, rdim]; idx: [M, d] tangent
     indices. Padded/invalid edges must have L == 0 and r == 0.
     """
-    Hblk = jnp.einsum("mri,mrj->mij", L, L)
-    gblk = jnp.einsum("mri,mr->mi", L, r)
+    Hblk = jnp.einsum("mri,mrj->mij", L, L, precision=MATMUL_PRECISION)
+    gblk = jnp.einsum("mri,mr->mi", L, r, precision=MATMUL_PRECISION)
     H = H.at[idx[:, :, None], idx[:, None, :]].add(Hblk)
     g = g.at[idx].add(gblk)
     return H, g
@@ -498,7 +505,7 @@ def _edge_blocks(
     # Closed-form Jacobian de/dp = -(dproj/dpc) R (analytic camera Jacobian,
     # ops/camera.project_jac; parity-tested vs jacfwd) -- the per-edge
     # vmapped jacfwd blocked XLA fusion across the assembly (see
-    # block_system.build_block_system, r5).
+    # block_system.build_block_system).
     for (p, R, t, kp, inv_s2, idx_p) in (
         (state.p1, data.R1w, data.t1w, data.kp1, data.inv_sigma2_1, idx_p1),
         (state.p2, data.R2w, data.t2w, data.kp2, data.inv_sigma2_2, idx_p2),
@@ -507,7 +514,7 @@ def _edge_blocks(
         e = kp - cam_ops.project(cam_kind, data.cam_params, pc)
         w = rep_weights(e, inv_s2)  # [N]
         Jpi = cam_ops.project_jac(cam_kind, data.cam_params, pc)  # [N, 2, 3]
-        L = -w[:, None, None] * jnp.einsum("nab,bc->nac", Jpi, R)
+        L = -w[:, None, None] * jnp.einsum("nab,bc->nac", Jpi, R, precision=MATMUL_PRECISION)
         r = w[:, None] * e
         blocks.append((L, r, idx_p))
 
@@ -521,7 +528,7 @@ def _edge_blocks(
             (state.p2, state.s2, data.R2w, data.t2w, data.depth2, idx_p2, i_s2),
         ):
             w = vm * inv_sigma_d
-            z = (p @ R.T + t)[:, 2]
+            z = (jnp.matmul(p, R.T, precision=MATMUL_PRECISION) + t)[:, 2]
             if spec.depth == "fixed":
                 s0 = jax.lax.stop_gradient(s)
                 e = d - z * s0
@@ -655,8 +662,8 @@ def build_system_jacfwd(
     zero = jnp.zeros((dim,), dtype=dtype)
     r = f(zero)
     J = jax.jacfwd(f)(zero)  # [R, dim]
-    H = J.T @ J
-    g = J.T @ r
+    H = jnp.matmul(J.T, J, precision=MATMUL_PRECISION)
+    g = jnp.matmul(J.T, r, precision=MATMUL_PRECISION)
     return H, g
 
 
@@ -669,17 +676,16 @@ def build_system(
 ):
     """Gauss-Newton H, g at ``state`` with robust weights frozen there.
 
-    TPU-shaped assembly from per-edge LOCAL Jacobians (``_edge_blocks``:
-    tiny jacfwds over each edge family's own <=18 coordinates, vmapped over
-    edges) scattered row-wise into the dense J -- a scatter-SET with unique
-    destinations per row, which lowers to one cheap scatter per family,
-    unlike the old per-edge H block scatter-ADD (`_scatter_system`, kept
-    for ``assemble_diag``) that serialized (~21 ms at N=240). H = J^T J and
-    g = J^T r are single MXU matmuls. Equivalent to ``build_system_jacfwd``
-    (1e-12 relative in f64) at ~0.65x its device time: the full-width JVP
-    re-evaluates every intermediate with a [dim]-wide tangent batch, while
-    the local blocks differentiate each edge only along the coordinates it
-    actually touches.
+    Assembly from per-edge LOCAL Jacobians (``_edge_blocks``: tiny jacfwds
+    over each edge family's own <=18 coordinates, vmapped over edges)
+    scattered row-wise into the dense J -- a scatter-SET with unique
+    destinations per row, one scatter per family, unlike the per-edge H
+    block scatter-ADD (`_scatter_system`, kept for ``assemble_diag``) whose
+    duplicate destinations serialize. H = J^T J and g = J^T r are single
+    full-f32 matmuls. Equivalent to ``build_system_jacfwd`` (1e-12 relative
+    in f64) with less work: the full-width JVP re-evaluates every
+    intermediate with a [dim]-wide tangent batch, while the local blocks
+    differentiate each edge only along the coordinates it actually touches.
     J is [R, dim] with R = O(N*(4+2+K)): ~40 MB at the fixture size, and
     the dense backend hands off to CG above DENSE_DIM_LIMIT anyway.
     """
@@ -711,7 +717,10 @@ def build_system(
         rs.append(r_.reshape(-1))
     J = jnp.concatenate(Js)
     r = jnp.concatenate(rs)
-    return J.T @ J, J.T @ r
+    return (
+        jnp.matmul(J.T, J, precision=MATMUL_PRECISION),
+        jnp.matmul(J.T, r, precision=MATMUL_PRECISION),
+    )
 
 
 def assemble_diag(
@@ -731,7 +740,7 @@ def assemble_diag(
     dim = _tangent_dim(n)
     diag = jnp.zeros((dim,), dtype=state.p1.dtype)
     for L, _, idx in _edge_blocks(cam_kind, data, hyper, state, spec):
-        contrib = jnp.einsum("mri,mri->mi", L, L)
+        contrib = jnp.einsum("mri,mri->mi", L, L, precision=MATMUL_PRECISION)
         diag = diag.at[idx].add(contrib)
     return diag
 
@@ -758,8 +767,8 @@ CG_RTOL = 1e-2
 # Dense-backend Jacobian budget across a vmapped pair batch. The dense path
 # materializes J [R, dim] per pair instance (R = N*(6+K)); vmap multiplies
 # that by the batch size, so a batch of large-but-under-DENSE_DIM_LIMIT pairs
-# can exceed HBM long before a single pair would. 2 GB leaves headroom on a
-# 16 GB v5e chip for the damped-solve Cholesky workspaces.
+# can exceed device memory long before a single pair would. Both limits
+# await a sweep on the H100 (ROADMAP, speed item 8).
 DENSE_J_BUDGET_BYTES = 2 << 30
 
 
@@ -854,11 +863,10 @@ def solve_pairs(
     Scheduling: the batch runs under ``lm_optimize_flat_batched``, NOT
     ``vmap(solve_pair)`` -- vmapping the sequential trial while_loop runs it
     in lockstep, charging every pair the batch-max trial count of every
-    iteration (measured 2.4x slower than solving the pairs one by one,
-    BENCH_r04 serving_*). The flat driver does one batched damped solve per
-    global step with per-pair accept/damping, which reproduces each pair's
-    exact sequential (lam, nu, accept) schedule while keeping every solve
-    fully batched on the MXU.
+    iteration. The flat driver does one batched damped solve per global step
+    with per-pair accept/damping, which reproduces each pair's exact
+    sequential (lam, nu, accept) schedule while keeping every solve fully
+    batched.
     """
     from . import block_system as bs_
 
@@ -925,35 +933,18 @@ def solve_pairs_pipelined(
     n_iterations: int,
     spec: ModelSpec = ModelSpec(),
 ):
-    """Serving scheduler of choice: dispatch independent per-pair solves
+    """Host-level serving scheduler: dispatch independent per-pair solves
     back-to-back through the device's in-order queue and let the caller
     sync once. Returns a list of LMResult (one per pair, same order).
 
-    MEASURED SCHEDULING COMPARISON (r5, 16 pairs x N=128 x 25 LM
-    iterations, clean chip, host-fetch-synced -- see bench.serving_*):
-
-    - pipelined per-pair dispatch (this function):  ~680 aggregate LM it/s
-    - lockstep vmap of the trial loop (r4 design):  ~370
-    - flat-batched driver (one batched damped solve
-      per global step, per-pair damping; solve_pairs): ~315 on this
-      high-rejection fixture (it re-linearizes every global step, so each
-      rejection costs a full batched assembly; on low-rejection workloads
-      it avoids the lockstep batch-max-trials penalty instead)
-
-    Why batching LOSES here: the dense per-pair LM is a serial chain of
-    small kernels (assembly, equilibrated Cholesky panels, cost) --
-    latency-bound, not FLOP-bound -- and XLA's batched factorizations do
-    not amortize that chain across the batch. Independent dispatches keep
-    every pair's control flow free (early stop, its own trial ladder) and
-    the queue overlaps one pair's host round trip with the next pair's
-    compute. The 0.8 x batch x single-pair-rate bar from VERDICT r4 is
-    physically unreachable on one chip: batch x single-rate would need
-    ~16x the FLOP rate of the already-MXU-resident single solve.
-
-    Use ``solve_pairs`` (flat-batched) when the batch must live inside ONE
-    jit (e.g. under shard_map/pjit over a pair axis, or inside a larger
-    compiled graph); use this host-level scheduler for serving many
-    independent pairs at peak device throughput.
+    Independent dispatches keep every pair's control flow free (early stop,
+    its own trial ladder) and the queue overlaps one pair's host work with
+    the next pair's compute. ``solve_pairs`` (flat-batched) is the form
+    for a batch that must live inside ONE jit (e.g. under shard_map/pjit
+    over a pair axis, or inside a larger compiled graph); its flat driver
+    re-linearizes every global step, so each rejection costs a full
+    batched assembly. Which of the two serves faster on a given device is
+    a benchmark question (ROADMAP, speed item 4).
     """
     return [
         solve_pair(cam_kind, d, hyper, s, n_iterations, spec)
@@ -1011,9 +1002,7 @@ def make_pair_data(
 
     nbr_j = jnp.asarray(nbr)
     mask = jnp.asarray(nbr >= 0)
-    R = arap_ops.compute_rotations(
-        jnp.asarray(p1_np), jnp.asarray(p2_np), nbr_j, mask, jnp.asarray(wcot)
-    )
+    R = jnp.asarray(arap_ops.compute_rotations_host(p1_np, p2_np, nbr, nbr >= 0, wcot), FP)
 
     ones = np.ones(n)
     return PairData(

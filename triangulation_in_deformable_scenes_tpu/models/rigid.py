@@ -55,7 +55,7 @@ import numpy as np
 from ..ops import lie
 from ..ops import lm as lm_ops
 from ..ops import camera as cam_ops
-from ..precision import TINY
+from ..precision import MATMUL_PRECISION, TINY
 from . import deformable
 
 
@@ -82,7 +82,7 @@ def apply_delta_rigid(state: RigidState, delta: jnp.ndarray) -> RigidState:
 
 
 def _p2_of(state: RigidState) -> jnp.ndarray:
-    return state.p1 @ state.Rr.T + state.tr
+    return jnp.matmul(state.p1, state.Rr.T, precision=MATMUL_PRECISION) + state.tr
 
 
 def residual_vector_rigid(
@@ -183,8 +183,8 @@ def robust_cost_rigid(cam_kind, data, hyper, state, spec=deformable.ModelSpec())
 
 
 def build_system_rigid(cam_kind, data, hyper, state, spec=deformable.ModelSpec()):
-    """Dense Gauss-Newton normal equations, [3N+8]^2 via jacfwd + one MXU
-    matmul (same TPU-shaped assembly as ``deformable.build_system``)."""
+    """Dense Gauss-Newton normal equations, [3N+8]^2 via jacfwd + one
+    full-f32 matmul."""
     n = state.p1.shape[0]
     dim = _rigid_tangent_dim(n)
 
@@ -194,7 +194,10 @@ def build_system_rigid(cam_kind, data, hyper, state, spec=deformable.ModelSpec()
     zero = jnp.zeros((dim,), dtype=state.p1.dtype)
     r = f(zero)
     J = jax.jacfwd(f)(zero)
-    return J.T @ J, J.T @ r
+    return (
+        jnp.matmul(J.T, J, precision=MATMUL_PRECISION),
+        jnp.matmul(J.T, r, precision=MATMUL_PRECISION),
+    )
 
 
 class RigidDiagnostics(NamedTuple):
@@ -254,18 +257,23 @@ def _midpoint_p1(cam_kind, data: deformable.PairData, Rr, tr, p1_fallback):
         xn = cam_ops.unproject(cam_kind, data.cam_params, kp)
         d = xn / jnp.linalg.norm(xn, axis=-1, keepdims=True)
         Rt = R.T
-        return -Rt @ t, d @ R  # world center [3], world dirs [N, 3]
+        return (  # world center [3], world dirs [N, 3]
+            -jnp.matmul(Rt, t, precision=MATMUL_PRECISION),
+            jnp.matmul(d, R, precision=MATMUL_PRECISION),
+        )
 
     c1, d1 = ray(data.R1w, data.t1w, data.kp1)
-    R2e = data.R2w @ Rr
-    t2e = data.R2w @ tr + data.t2w
+    R2e = jnp.matmul(data.R2w, Rr, precision=MATMUL_PRECISION)
+    t2e = jnp.matmul(data.R2w, tr, precision=MATMUL_PRECISION) + data.t2w
     c2, d2 = ray(R2e, t2e, data.kp2)
 
     eye = jnp.eye(3, dtype=dtype)
     A1 = eye[None] - d1[:, :, None] * d1[:, None, :]  # [N, 3, 3]
     A2 = eye[None] - d2[:, :, None] * d2[:, None, :]
     A = A1 + A2
-    b = A1 @ c1 + A2 @ c2
+    b = jnp.matmul(A1, c1, precision=MATMUL_PRECISION) + jnp.matmul(
+        A2, c2, precision=MATMUL_PRECISION
+    )
     # Parallax conditioning: the smallest eigenvalue of A is
     # 1 - cos(angle between rays); damp and gate on it.
     cosang = jnp.sum(d1 * d2, axis=-1)
@@ -298,8 +306,8 @@ def _one_rigid_round(cam_kind, data, hyper, state, n_iterations, spec):
     wsum = jnp.maximum(jnp.sum(vm), 1.0)
     c1 = jnp.sum(vm[:, None] * state.p1, axis=0) / wsum
     c2 = jnp.sum(vm[:, None] * state.p2, axis=0) / wsum
-    tr = c2 - R @ c1
-    fit = state.p1 @ R.T + tr - state.p2
+    tr = c2 - jnp.matmul(R, c1, precision=MATMUL_PRECISION)
+    fit = jnp.matmul(state.p1, R.T, precision=MATMUL_PRECISION) + tr - state.p2
     fit_rms = jnp.sqrt(jnp.sum(vm * jnp.sum(fit * fit, axis=-1)) / wsum)
 
     # Unbiased scale anchors from the current state's own camera depths
@@ -335,7 +343,7 @@ def _one_rigid_round(cam_kind, data, hyper, state, n_iterations, spec):
     # residual Rg p2 - tg - p1 ~ 0  =>  Rg = Rr^-1, tg = Rg tr.
     Rg = rs.Rr.T
     cand = deformable.PairState(
-        p1=rs.p1, p2=p2, s1=rs.s1, s2=rs.s2, Rg=Rg, tg=Rg @ rs.tr
+        p1=rs.p1, p2=p2, s1=rs.s1, s2=rs.s2, Rg=Rg, tg=jnp.matmul(Rg, rs.tr, precision=MATMUL_PRECISION)
     )
     s1px, s2px = _pixel_sigmas(cam_kind, data, rs.p1, p2)
     dr1, dr2 = depth_discrepancy(data, rs.p1, p2, rs.s1, rs.s2)

@@ -24,7 +24,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
+from ..precision import MATMUL_PRECISION
 from . import lie
 
 
@@ -46,13 +48,40 @@ def compute_rotations(p1, p2, nbr, nbr_mask, weights):
     e1 = p1[:, None, :] - p1j  # undeformed edges
     e2 = p2[:, None, :] - p2j  # deformed edges
     w = jnp.where(nbr_mask, weights, 0.0)
-    S = jnp.einsum("nk,nki,nkj->nij", w, e1, e2)
+    S = jnp.einsum("nk,nki,nkj->nij", w, e1, e2, precision=MATMUL_PRECISION)
     # Vertices with no neighbors keep identity (S = 0 -> SVD gives arbitrary
     # rotation; mask afterwards).
     R = lie.fit_rotation(S)
     has_nbr = jnp.any(nbr_mask, axis=-1)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=p1.dtype), R.shape)
     return jnp.where(has_nbr[:, None, None], R, eye)
+
+
+def compute_rotations_host(p1, p2, nbr, nbr_mask, weights):
+    """``compute_rotations`` in numpy float64 on the host, for the per-round
+    mesh snapshot (``deformable.make_pair_data``), which freezes these
+    rotations next to the host-side Delaunay mesh and cotangent weights.
+
+    A vertex whose weighted neighbourhood is degenerate (S of rank < 2, e.g.
+    a hull vertex whose other cot weights clamp to zero) has no unique best
+    rotation: an f32 SVD on one device and on another pick different ones,
+    and the deformation model would then differ between them. Computing the
+    snapshot here keeps it the same whichever device solves.
+    """
+    p1 = np.asarray(p1, np.float64)
+    p2 = np.asarray(p2, np.float64)
+    nbr = np.asarray(nbr)
+    mask = np.asarray(nbr_mask, bool)
+    j = np.maximum(nbr, 0)
+    w = np.where(mask, np.asarray(weights, np.float64), 0.0)
+    S = np.einsum("nk,nki,nkj->nij", w, p1[:, None, :] - p1[j], p2[:, None, :] - p2[j])
+    U, _, Vt = np.linalg.svd(S)
+    V = np.swapaxes(Vt, -1, -2)
+    # Flip U's last column where V U^T is improper (reference: U.col(2)).
+    U[:, :, 2] *= np.where(np.linalg.det(V @ np.swapaxes(U, -1, -2)) < 0, -1.0, 1.0)[:, None]
+    R = V @ np.swapaxes(U, -1, -2)
+    R[~mask.any(axis=-1)] = np.eye(3)
+    return R
 
 
 def arap_edge_energy(p1, p2, R, nbr, nbr_mask, weights, area, Rg, tg):
@@ -69,14 +98,14 @@ def arap_edge_energy(p1, p2, R, nbr, nbr_mask, weights, area, Rg, tg):
     d2i = p2[:, None, :] - p2j
     # d1j = -d1i, d2j = -d2i per the reference's definition.
 
-    Ri_d1i = jnp.einsum("nab,nkb->nka", R, d1i)
-    Rj_d1j = jnp.einsum("nkab,nkb->nka", Rj, -d1i)
+    Ri_d1i = jnp.einsum("nab,nkb->nka", R, d1i, precision=MATMUL_PRECISION)
+    Rj_d1j = jnp.einsum("nkab,nkb->nka", Rj, -d1i, precision=MATMUL_PRECISION)
 
     first = (d2i - Ri_d1i) / area
     second = (-d2i - Rj_d1j) / area
 
-    g_i = jnp.einsum("ab,nb->na", Rg, p2) - tg - p1  # [N, 3]
-    g_j = jnp.einsum("ab,nkb->nka", Rg, p2j) - tg - p1j
+    g_i = jnp.einsum("ab,nb->na", Rg, p2, precision=MATMUL_PRECISION) - tg - p1  # [N, 3]
+    g_j = jnp.einsum("ab,nkb->nka", Rg, p2j, precision=MATMUL_PRECISION) - tg - p1j
     diff_global = g_i[:, None, :] + g_j
     energy_global = jnp.sum(diff_global * diff_global, axis=-1)
 
@@ -139,7 +168,8 @@ def arap_deform(
         Rj = R[j_safe]
         rest_edges = p_rest[:, None, :] - p_rest[j_safe]
         rhs_edges = 0.5 * jnp.einsum(
-            "nk,nkab,nkb->na", w, (R[:, None] + Rj), rest_edges
+            "nk,nkab,nkb->na", w, (R[:, None] + Rj), rest_edges,
+            precision=MATMUL_PRECISION,
         )
         b = jnp.where(cmask[:, None], cpos, rhs_edges)
         return jax.scipy.linalg.lu_solve((lu, piv), b)
@@ -165,7 +195,7 @@ def global_edge_errors(p1, p2, nbr, nbr_mask, Rg, tg):
     """Per directed edge global-alignment error (Measurements.cc:476)."""
     p1j = _gather_nbr(p1, nbr)
     p2j = _gather_nbr(p2, nbr)
-    g_i = jnp.einsum("ab,nb->na", Rg, p2) - tg - p1
-    g_j = jnp.einsum("ab,nkb->nka", Rg, p2j) - tg - p1j
+    g_i = jnp.einsum("ab,nb->na", Rg, p2, precision=MATMUL_PRECISION) - tg - p1
+    g_j = jnp.einsum("ab,nkb->nka", Rg, p2j, precision=MATMUL_PRECISION) - tg - p1j
     diff = g_i[:, None, :] + g_j
     return jnp.where(nbr_mask, jnp.sum(diff * diff, axis=-1), 0.0)

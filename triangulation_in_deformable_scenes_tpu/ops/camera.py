@@ -95,8 +95,7 @@ def kb8_project_jac(params, p3d):
     and bit-parity-tested against ``jax.jacfwd(kb8_project)``
     (tests/test_camera.py). Exists because the vmapped 3-wide jacfwd of the
     projection inside the Hessian assembly blocked XLA fusion across the
-    whole assembly graph (measured r5: the analogous closed-form rewrite of
-    the depth family alone took the bigN LM 106 -> 191 iters/s).
+    whole assembly graph.
     """
     fx, fy = params[0], params[1]
     k = params[4:8]

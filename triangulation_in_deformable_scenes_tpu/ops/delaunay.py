@@ -10,20 +10,50 @@ inside ``jit`` (the device consumes only the padded neighbor arrays built in
 Two interchangeable backends:
 
 - native C++ Bowyer-Watson (``native/delaunay.cc``, loaded via ctypes) -- the
-  production runtime path, no Python in the loop;
+  production runtime path, no Python in the loop. The library is built from
+  source with ``make -C native`` at first use when a C++ compiler is present;
 - ``scipy.spatial.Delaunay`` (Qhull, same engine as the reference) -- fallback
   and cross-validation oracle in tests.
+
+``CALLS`` counts the triangulations each backend produced in this process,
+so a run can report which one meshed it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
+import subprocess
 
 import numpy as np
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
+)
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libtids_native.so")
 _NATIVE = None
 _NATIVE_TRIED = False
+
+CALLS = {"native": 0, "scipy": 0}
+
+
+def _build_native() -> bool:
+    """``make -C native`` under a file lock (parallel test workers may all
+    reach the first mesh at once). Returns whether the library exists."""
+    if os.path.exists(_LIB_PATH):
+        return True
+    if not (os.path.isdir(_NATIVE_DIR) and shutil.which("make") and shutil.which("g++")):
+        return False
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB_PATH):
+            subprocess.run(
+                ["make", "-s", "-C", _NATIVE_DIR],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, check=False,
+            )
+    return os.path.exists(_LIB_PATH)
 
 
 def _load_native():
@@ -31,22 +61,16 @@ def _load_native():
     if _NATIVE_TRIED:
         return _NATIVE
     _NATIVE_TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    for cand in (
-        os.path.join(here, "native", "libtids_native.so"),
-        os.path.join(os.path.dirname(__file__), "libtids_native.so"),
-    ):
-        if os.path.exists(cand):
-            lib = ctypes.CDLL(cand)
-            lib.tids_delaunay2d.restype = ctypes.c_int
-            lib.tids_delaunay2d.argtypes = [
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int),
-            ]
-            _NATIVE = lib
-            break
+    if _build_native():
+        lib = ctypes.CDLL(_LIB_PATH)
+        lib.tids_delaunay2d.restype = ctypes.c_int
+        lib.tids_delaunay2d.argtypes = [
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        _NATIVE = lib
     return _NATIVE
 
 
@@ -73,6 +97,7 @@ def delaunay_triangles(xy: np.ndarray, backend: str = "auto") -> np.ndarray:
                 ctypes.byref(ntri),
             )
             if rc == 0:
+                CALLS["native"] += 1
                 return np.ascontiguousarray(tri[: ntri.value])
             if backend == "native":
                 raise RuntimeError(f"native delaunay failed with rc={rc}")
@@ -82,4 +107,5 @@ def delaunay_triangles(xy: np.ndarray, backend: str = "auto") -> np.ndarray:
     from scipy.spatial import Delaunay
 
     # Qhull options mirror the reference's "d Qbb Qt" (Geometry.cc:339).
+    CALLS["scipy"] += 1
     return Delaunay(xy, qhull_options="Qbb Qt").simplices.astype(np.int32)

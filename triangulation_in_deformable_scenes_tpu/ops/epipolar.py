@@ -7,7 +7,7 @@ dataset pipelines feed ground-truth poses: 8-point ``computeE`` (:180-203),
 translation sign (:246-262), and a cluster-sampled RANSAC consensus loop
 (:119-178, one sample per kmeans cluster of the reference keypoints).
 
-TPU design: every RANSAC hypothesis is materialized up front -- cluster
+Array design: every RANSAC hypothesis is materialized up front -- cluster
 assignment is a fixed-iteration Lloyd k-means (batched), per-hypothesis
 8-point minimal sets are gathered with ``jax.random.categorical`` over the
 cluster masks, the 8-point solve is a vmapped [B, 8, 9] SVD, and all
@@ -23,7 +23,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..precision import FP, TINY
+from ..precision import FP, MATMUL_PRECISION, TINY
 from . import lie
 from .matching import epipolar_inliers
 
@@ -45,7 +45,7 @@ def compute_essential_8pt(ref_rays, cur_rays):
     E = Vt[..., 8, :].reshape(*A.shape[:-2], 3, 3)
     U, s, Vt3 = jnp.linalg.svd(E)
     s2 = jnp.stack([jnp.ones_like(s[..., 0]), jnp.ones_like(s[..., 0]), jnp.zeros_like(s[..., 0])], axis=-1)
-    Ef = U @ (s2[..., :, None] * Vt3)
+    Ef = jnp.matmul(U, s2[..., :, None] * Vt3, precision=MATMUL_PRECISION)
     return -Ef
 
 
@@ -56,8 +56,8 @@ def decompose_essential(E):
     """
     U, _, Vt = jnp.linalg.svd(E)
     W = jnp.asarray([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype)
-    R1 = U @ W.T @ Vt
-    R2 = U @ W @ Vt
+    R1 = jnp.matmul(jnp.matmul(U, W.T, precision=MATMUL_PRECISION), Vt, precision=MATMUL_PRECISION)
+    R2 = jnp.matmul(jnp.matmul(U, W, precision=MATMUL_PRECISION), Vt, precision=MATMUL_PRECISION)
     det1 = jnp.linalg.det(R1)
     det2 = jnp.linalg.det(R2)
     R1 = R1 * jnp.where(det1 < 0, -1.0, 1.0)[..., None, None]
@@ -79,7 +79,7 @@ def reconstruct_cameras(E, rays1, rays2):
     tr1 = jnp.trace(R1, axis1=-2, axis2=-1)
     tr2 = jnp.trace(R2, axis1=-2, axis2=-1)
     R = jnp.where((tr2 > tr1)[..., None, None], R2, R1)
-    moved = jnp.einsum("...ij,...nj->...ni", R, rays1) - rays2
+    moved = jnp.einsum("...ij,...nj->...ni", R, rays1, precision=MATMUL_PRECISION) - rays2
     away = jnp.sum(jnp.sign(jnp.sum(moved * (rays2 - t[..., None, :]), axis=-1)), axis=-1)
     t = jnp.where((away < 0)[..., None], -t, t)
     return R, t
@@ -105,7 +105,7 @@ def _kmeans(xy, valid, k, iters, key):
         labels = jnp.argmin(d2, axis=-1)
         onehot = jax.nn.one_hot(labels, k, dtype=xy.dtype) * vm[:, None]  # [N, k]
         counts = jnp.sum(onehot, axis=0)
-        sums = onehot.T @ xy  # [k, 2]
+        sums = jnp.matmul(onehot.T, xy, precision=MATMUL_PRECISION)  # [k, 2]
         new_centers = jnp.where(counts[:, None] > 0, sums / jnp.maximum(counts, 1.0)[:, None], centers)
         return new_centers, None
 

@@ -14,8 +14,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..precision import MATMUL_PRECISION
+
 # Numerically-safe threshold for small-angle series expansions.
 _EPS = 1e-12
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=MATMUL_PRECISION)
+
+
+def _mv(M, v):
+    """Batched matrix-vector product M[..., i, j] v[..., j]."""
+    return jnp.einsum("...ij,...j->...i", M, v, precision=MATMUL_PRECISION)
 
 
 def hat(w):
@@ -42,7 +53,7 @@ def so3_exp(w):
     b = jnp.where(use_series, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / (theta2 + _EPS))
     W = hat(w)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
-    return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return eye + a[..., None, None] * W + b[..., None, None] * _mm(W, W)
 
 
 def so3_log(R):
@@ -81,24 +92,24 @@ def se3_exp(xi):
         use_series, 1.0 / 6.0 - theta2 / 120.0, (theta - jnp.sin(theta)) / (theta2 * theta + _EPS)
     )
     eye = jnp.broadcast_to(jnp.eye(3, dtype=xi.dtype), R.shape)
-    V = eye + b[..., None, None] * W + c[..., None, None] * (W @ W)
-    t = jnp.einsum("...ij,...j->...i", V, v)
+    V = eye + b[..., None, None] * W + c[..., None, None] * _mm(W, W)
+    t = _mv(V, v)
     return R, t
 
 
 def compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb): apply b first, then a."""
-    return Ra @ Rb, jnp.einsum("...ij,...j->...i", Ra, tb) + ta
+    return _mm(Ra, Rb), _mv(Ra, tb) + ta
 
 
 def inverse(R, t):
     Rt = jnp.swapaxes(R, -1, -2)
-    return Rt, -jnp.einsum("...ij,...j->...i", Rt, t)
+    return Rt, -_mv(Rt, t)
 
 
 def apply(R, t, p):
     """Transform points p[..., 3]."""
-    return jnp.einsum("...ij,...j->...i", R, p) + t
+    return _mv(R, p) + t
 
 
 def look_at(camera_pos, target_pos, up=None):
@@ -135,9 +146,9 @@ def kabsch(p_src, p_dst, weights=None):
     c_dst = jnp.sum(weights[..., None] * p_dst, axis=-2) / wsum
     a = p_src - c_src[..., None, :]
     b = p_dst - c_dst[..., None, :]
-    H = jnp.einsum("...n,...ni,...nj->...ij", weights, a, b)
+    H = jnp.einsum("...n,...ni,...nj->...ij", weights, a, b, precision=MATMUL_PRECISION)
     R = fit_rotation(H)
-    t = jnp.einsum("...ij,...j->...i", R, c_dst) - c_src
+    t = _mv(R, c_dst) - c_src
     return R, t
 
 
@@ -149,11 +160,11 @@ def fit_rotation(H):
     """
     U, _, Vt = jnp.linalg.svd(H)
     V = jnp.swapaxes(Vt, -1, -2)
-    R = V @ jnp.swapaxes(U, -1, -2)
+    R = _mm(V, jnp.swapaxes(U, -1, -2))
     det = jnp.linalg.det(R)
     # Flip last column of U when improper (reference flips U.col(2)).
     U_fix = U.at[..., :, 2].multiply(jnp.where(det < 0, -1.0, 1.0)[..., None])
-    return V @ jnp.swapaxes(U_fix, -1, -2)
+    return _mm(V, jnp.swapaxes(U_fix, -1, -2))
 
 
 def quat_to_matrix(q):

@@ -13,10 +13,12 @@ jittable solver:
 - gain ratio rho = (F0 - F1) / (delta . (lambda delta - g)).
 - the normal equations are solved densely in f32: the damped system is
   Jacobi-equilibrated to unit diagonal before the Cholesky factorization and
-  the solution is polished with one iterative-refinement step (see
-  ``precision.py`` -- TPUs have no f64 hardware, and the equilibrated +
-  refined f32 solve recovers the accuracy an unscaled f64 factorization
-  gives at these condition numbers). The block-sparse PCG backend for
+  the solution is polished with one iterative-refinement step, whose
+  residual ``A x`` is computed in full f32 (``precision.MATMUL_PRECISION``;
+  a TF32 residual would undo the refinement). The equilibrated + refined
+  f32 solve recovers the accuracy an unscaled f64 factorization gives at
+  these condition numbers; whether a plain f64 solve should replace it is
+  an open design question (see ``precision.py``). The block-sparse PCG backend for
   large problems lives in ``models/block_system.py``; the sharded wiring in
   ``parallel/``.
 
@@ -37,7 +39,7 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..precision import FP, TINY
+from ..precision import FP, MATMUL_PRECISION, TINY
 
 
 def solve_damped_cholesky(H, g, lam):
@@ -56,7 +58,7 @@ def solve_damped_cholesky(H, g, lam):
 
     x = solve(-g)
     # One iterative-refinement step against the unfactored A.
-    x = x + solve(-g - A @ x)
+    x = x + solve(-g - jnp.matmul(A, x, precision=MATMUL_PRECISION))
     return x
 
 
@@ -105,7 +107,7 @@ def lm_optimize_general(
                 delta = solve(lam)
                 cand = apply_delta(state, delta)
                 F1 = robust_cost(cand)
-                scale = jnp.dot(delta, lam * delta - g) + TINY
+                scale = jnp.dot(delta, lam * delta - g, precision=MATMUL_PRECISION) + TINY
                 rho = (F - F1) / scale
                 ok = jnp.logical_and(rho > 0, jnp.isfinite(F1))
                 factor = jnp.maximum(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
@@ -166,12 +168,8 @@ def lm_optimize(
     g2o's accept/reject while-loop, so an iteration whose FIRST trial
     accepts (the overwhelmingly common case) pays exactly one damped
     Cholesky + one cost evaluation. The speculative all-trials-batched
-    variant (``lm_optimize_speculative``, same accept decisions) was this
-    function's previous implementation, motivated by per-DISPATCH overhead
-    -- but inside one compiled scan there is no per-op dispatch cost on
-    TPU, and measured device time is ~2x lower sequentially (41 vs 85 ms
-    for 25 iterations at the benchmark fixture size; the ladder's 10
-    Choleskys per iteration are real compute, not overhead).
+    variant (``lm_optimize_speculative``, same accept decisions) runs all
+    ten trial Choleskys of every iteration instead.
     """
 
     def make_step(state):
@@ -197,9 +195,8 @@ def lm_optimize_flat_batched(
     """Per-pair-asynchronous LM for a BATCH of independent problems.
 
     ``vmap(lm_optimize_general)`` runs the inner trial while_loop in
-    lockstep: every pair pays the batch-MAX trial count of every iteration,
-    which measured ~2.4x slower than just solving the pairs sequentially
-    (BENCH_r04 serving_*). This driver flattens the trial loop away: each
+    lockstep: every pair pays the batch-MAX trial count of every iteration.
+    This driver flattens the trial loop away: each
     global step performs exactly ONE batched damped solve + ONE batched
     cost evaluation, and acceptance/damping evolve PER PAIR -- a rejection
     simply means that pair's state doesn't move this step while its lambda
@@ -232,7 +229,9 @@ def lm_optimize_flat_batched(
         delta = solve_b(lam0)
         cand = apply_b(state, delta)
         F1 = robust_cost_batched(cand)
-        scale = jnp.einsum("bd,bd->b", delta, lam0[:, None] * delta - g_b) + TINY
+        scale = jnp.einsum(
+            "bd,bd->b", delta, lam0[:, None] * delta - g_b, precision=MATMUL_PRECISION
+        ) + TINY
         rho = (F - F1) / scale
         alive = jnp.logical_and(jnp.logical_not(stop), n_acc < n_iterations)
         ok = jnp.logical_and(jnp.logical_and(rho > 0, jnp.isfinite(F1)), alive)
@@ -285,8 +284,8 @@ def lm_optimize_speculative(
     lambda evolution as the sequential loop. Useful when the workload is
     genuinely trial-heavy (most iterations reject several times) or when
     per-step dispatch overhead dominates (e.g. eager/step-wise execution);
-    in the compiled scan the sequential form is ~2x faster because trials
-    rarely reject (tests/test_lm.py pins the policy equivalence).
+    when trials rarely reject the sequential form does less work
+    (tests/test_lm.py pins the policy equivalence).
     """
     F0_init = robust_cost(state0)
     k = jnp.arange(max_trials)
@@ -306,7 +305,10 @@ def lm_optimize_speculative(
             deltas = jax.vmap(lambda l: solve_damped_cholesky(H, g, l))(lams)  # [T, dim]
             cands = jax.vmap(lambda d: apply_delta(state, d))(deltas)
             F1s = jax.vmap(robust_cost)(cands)  # [T]
-            scales = jnp.einsum("td,td->t", deltas, lams[:, None] * deltas - g[None, :]) + TINY
+            scales = jnp.einsum(
+                "td,td->t", deltas, lams[:, None] * deltas - g[None, :],
+                precision=MATMUL_PRECISION,
+            ) + TINY
             rhos = (F - F1s) / scales
             oks = (rhos > 0) & jnp.isfinite(F1s)
 

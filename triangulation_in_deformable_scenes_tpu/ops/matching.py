@@ -1,10 +1,10 @@
 """Descriptor matching as dense masked matrix ops.
 
-Rebuilds ``Modules/Matching/DescriptorMatching.cc`` TPU-first: instead of
-per-keypoint windowed candidate loops with popcount Hamming
+Rebuilds ``Modules/Matching/DescriptorMatching.cc`` as array ops: instead
+of per-keypoint windowed candidate loops with popcount Hamming
 (``DescriptorMatching.cc:22-99``), the full N1 x N2 Hamming matrix is one
-matmul over 0/1 bit vectors -- exactly the workload the MXU is built for --
-and the grid-window / octave constraints become additive masks.
+matmul over 0/1 bit vectors (a GEMM the BLAS library runs), and the
+grid-window / octave constraints become additive masks.
 
 ``search_for_initialization`` mirrors the live matcher
 (``searchForInitializaion``): finest-octave reference keys, a radius
@@ -18,17 +18,18 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..precision import MATMUL_PRECISION
+
 BIG = 1_000_000.0
 
 
 def hamming_matrix(bits_a, bits_b):
     """[N1, 256] x [N2, 256] 0/1 bits -> [N1, N2] Hamming distances.
 
-    H(a, b) = sum(a) + sum(b) - 2 a.b : a single MXU matmul plus rank-1
-    corrections (cheaper and faster than XOR+popcount on TPU). The operands
-    are 0/1 and the 256-bit dot is an integer <= 256, so bf16 inputs with
-    f32 accumulation are EXACT -- and run the MXU at full bf16 rate (4x the
-    f32 rate on v5e).
+    H(a, b) = sum(a) + sum(b) - 2 a.b : a single matmul plus rank-1
+    corrections. The operands are 0/1 and the 256-bit dot is an integer
+    <= 256, so bf16 inputs with f32 accumulation are EXACT whatever the
+    matmul route, and run at the bf16 tensor-core rate.
     """
     a = bits_a.astype(jnp.bfloat16)
     b = bits_b.astype(jnp.bfloat16)
@@ -54,7 +55,6 @@ def search_for_initialization(
     window_factor: float = 50.0,
     ratio: float = 0.9,
     max_octave: int = 0,
-    backend: str | None = None,
 ):
     """Returns (matches [N1] int32 with -1 for unmatched, n_matches).
 
@@ -62,32 +62,7 @@ def search_for_initialization(
     only reference keys with octave <= max_octave participate; candidates
     must lie within ``window_factor * scale_factor[octave]`` pixels and in
     octave [o-1, o+1].
-
-    ``backend``: "pallas" forces the fused TPU kernel, "xla" the dense-matrix
-    path; None auto-selects (bit-identical results either way -- the kernel
-    is the same math with the [N1, N2] intermediates kept in VMEM).
-
-    Backend choice, settled by the committed device-time size sweep
-    (BENCH_r03 ``matching_sweep``, TPU v5e, serialized-loop timing): XLA
-    wins at EVERY size -- 2.51 vs 2.93 ms at 1024^2, 3.10 vs 5.16 at
-    2048^2, 3.42 vs 12.06 at 4096^2, 4.47 vs 39.74 at 8192^2 -- and the
-    Pallas kernel's gap WIDENS with N (its row-blocked one-to-one pass
-    serializes where XLA's batched masked reductions pipeline). The auto
-    rule therefore always picks XLA; the Pallas kernel stays as a tested,
-    documented experiment (``ops/pallas_kernels.py``) and as the template
-    for fusing different matching variants should one outgrow VMEM.
     """
-    if backend is None:
-        backend = "xla"
-    if backend == "pallas":
-        from . import pallas_kernels
-
-        return pallas_kernels.fused_search_for_initialization(
-            kp_ref, desc_ref, octave_ref, valid_ref,
-            kp_cur, desc_cur, octave_cur, valid_cur,
-            scale_factors, th=th, window_factor=window_factor,
-            ratio=ratio, max_octave=max_octave,
-        )
     D = hamming_matrix(desc_ref, desc_cur)  # [N1, N2]
 
     oct_r = octave_ref
@@ -101,14 +76,7 @@ def search_for_initialization(
     allowed = in_window & oct_ok & row_ok[:, None] & valid_cur[None, :]
 
     Dm = jnp.where(allowed, D, BIG)
-    best = jnp.argmin(Dm, axis=1)
-    best_d = jnp.min(Dm, axis=1)
-    second_d = jnp.min(
-        jnp.where(
-            jnp.arange(Dm.shape[1])[None, :] == best[:, None], BIG, Dm
-        ),
-        axis=1,
-    )
+    best, best_d, second_d = _best_second_best(Dm)
     ok = (best_d <= th) & (best_d < second_d * ratio)
     return _one_to_one(best, best_d, ok, Dm.shape[1])
 
@@ -128,10 +96,9 @@ def _one_to_one(best, best_d, ok, n2):
     """Resolve row->column conflicts by keeping the smallest distance (the
     C++ matchers' vnMatches21 bookkeeping).
 
-    Implemented as a one-hot masked min-reduce rather than a scatter-min:
-    TPU lowers scatters with duplicate indices to a serial loop (~15 us per
-    row -- 30 ms at N=2048), while the [N1, N2+1] masked reduction is one
-    bandwidth-bound pass.
+    Implemented as a one-hot masked min-reduce over [N1, N2+1] rather than
+    a scatter-min with duplicate indices: one bandwidth-bound pass, and the
+    result does not depend on the order in which duplicates are combined.
     """
     best_safe = jnp.where(ok, best, n2)  # park invalid rows on a dummy column
     onehot = jnp.arange(n2 + 1)[None, :] == best_safe[:, None]  # [n1, n2+1]
@@ -245,10 +212,10 @@ def search_for_triangulation(
     is NOT reproduced).
     """
     D = hamming_matrix(desc1, desc2)
-    r1h = rays1 @ E.T
+    r1h = jnp.matmul(rays1, E.T, precision=MATMUL_PRECISION)
     r1h = r1h / jnp.linalg.norm(r1h, axis=-1, keepdims=True)
     r2n = rays2 / jnp.linalg.norm(rays2, axis=-1, keepdims=True)
-    ang = jnp.arccos(jnp.clip(r1h @ r2n.T, -1.0, 1.0))
+    ang = jnp.arccos(jnp.clip(jnp.matmul(r1h, r2n.T, precision=MATMUL_PRECISION), -1.0, 1.0))
     epi_ok = jnp.abs(jnp.pi / 2 - ang) < epipolar_th
     allowed = (D <= 50.0) & epi_ok & free1[:, None] & free2[None, :]
     Dm = jnp.where(allowed, D, BIG)
@@ -296,13 +263,13 @@ def essential_from_pose(R12, t12):
         ],
         dtype=R12.dtype,
     )
-    return tx @ R12
+    return jnp.matmul(tx, R12, precision=MATMUL_PRECISION)
 
 
 def epipolar_inliers(E, rays_ref, rays_cur, th):
     """Angular epipolar test (``MonocularMapInitializer::computeScoreAndInliers``):
     |pi/2 - angle(E r1, r2)| < th."""
-    r1h = rays_ref @ E.T
+    r1h = jnp.matmul(rays_ref, E.T, precision=MATMUL_PRECISION)
     r1h = r1h / jnp.linalg.norm(r1h, axis=-1, keepdims=True)
     r2n = rays_cur / jnp.linalg.norm(rays_cur, axis=-1, keepdims=True)
     ang = jnp.arccos(jnp.clip(jnp.sum(r1h * r2n, axis=-1), -1.0, 1.0))

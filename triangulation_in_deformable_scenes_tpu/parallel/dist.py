@@ -11,16 +11,14 @@ capability of this framework (SURVEY.md section 7 step 7). Design:
   neighbor 6x6 coupling blocks aligned with ``data.nbr``, and an 8-dim global
   column. Every assembly product is point-local except the neighbor reads;
   CG runs on the assembled operator, so one H v is a single packed [N, 6]
-  neighbor exchange plus MXU einsums -- no scatter, no AD transpose;
+  neighbor exchange plus batched 6x6 einsums -- no scatter, no AD transpose;
 - communication per matvec: the [N, 6] packed-tangent exchange for the
   unstructured mesh-neighbor reads (XLA lowers it as an all-gather — the
   partitioner cannot prove locality of an unpartitioned adjacency), psums
   for the CG dot products and the shared 8-dim (scales + global SE3) block.
-  Measured on 8 virtual devices this costs 1.4-2.2x vs 1 device at
-  N=2048-4096; the production path is ``parallel/halo.py``, which Morton-
-  partitions the mesh and runs the PCG inside ``shard_map`` exchanging only
-  the O(sqrt(N)) boundary rows — overhead <= 1.0x at every measured size.
-  This module stays as the partitioner-lowered baseline (and the single-
+  The production path is ``parallel/halo.py``, which Morton-partitions the
+  mesh and runs the PCG inside ``shard_map`` exchanging only the O(sqrt(N))
+  boundary rows. This module stays as the partitioner-lowered baseline (and the single-
   device CG backend);
 - preconditioning: block-Jacobi from the assembled 6x6/8x8 diagonal blocks.
 

@@ -3,9 +3,8 @@
 The plain landmark-sharded solve (``dist.solve_pair_distributed``) leaves the
 mesh-neighbor gather ``v_p[nbr]`` to XLA's SPMD partitioner. The adjacency is
 unpartitioned, so the partitioner proves nothing about locality and lowers
-every CG matvec to an all-gather of the FULL packed tangent [N, 6] — the
-round-2 HLO audit counted 44 such all-gathers per solve, and the measured
-8-virtual-device overhead was 2.2x (BENCH_r02 ``virtual8_comm_overhead``).
+every CG matvec to an all-gather of the FULL packed tangent [N, 6] (an HLO
+audit counted 44 such all-gathers per solve).
 
 This module makes the locality explicit instead (SURVEY.md §7.7: "ARAP
 neighbor exchange via halo gather (neighbor lists partitioned by mesh
@@ -31,7 +30,7 @@ block)"):
    (r.z, r.r), whose r.r is carried into the stop test).
 
 Communication per matvec drops from all-gather(6·N) to psum(6·|B| + 8), and
-per CG iteration from six collectives (r4) to three.
+per CG iteration from six collectives to three.
 Assembly (once per LM linearization) and the robustified-cost evaluation
 (once per trial) still read neighbors through the partitioner's all-gather —
 they are 1-2 per LM iteration vs ``cg_iters`` matvecs, so the matvec is the
@@ -54,14 +53,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..models import block_system as bs_
 from ..models import deformable as D_
 from ..ops import lm as lm_ops
-from ..precision import TINY
+from ..precision import MATMUL_PRECISION, TINY
 from . import dist
-
-try:  # jax >= 0.8
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-
 
 def morton_perm(xy: np.ndarray) -> np.ndarray:
     """Permutation sorting 2-D points along a Z-order (Morton) curve."""
@@ -257,9 +250,9 @@ def _pcg_halo_local(
     """Per-shard PCG body (runs inside shard_map). Solves
     (H + lam I) x = -g with block-Jacobi preconditioning.
 
-    Collective schedule (VERDICT r4 item 6 -- the r4 version paid SIX psums
-    per CG iteration, every one a full barrier in front of the heavy Bt
-    stream): THREE psums per iteration, and the expensive work is
+    Collective schedule (an earlier version paid SIX psums per CG
+    iteration, every one a full barrier in front of the heavy Bt stream):
+    THREE psums per iteration, and the expensive work is
     independent of the first one so the scheduler can overlap it:
 
     1. matvec: ONE fused psum carries the [B, 6] boundary rows AND the
@@ -284,7 +277,7 @@ def _pcg_halo_local(
     def matvec(v_p, v_g):
         # Fused exchange: boundary rows + the C^T v_p reduction in ONE psum.
         halo_in = jnp.where(own, v_p[halo_local], 0.0)
-        cg_part = jnp.einsum("nag,na->g", C, v_p)
+        cg_part = jnp.einsum("nag,na->g", C, v_p, precision=MATMUL_PRECISION)
         buf = jax.lax.psum(
             jnp.concatenate([halo_in.reshape(-1), cg_part]), axis
         )
@@ -292,30 +285,38 @@ def _pcg_halo_local(
         # Interior stream: no halo dependency (off-shard slots read zero).
         vj = jnp.where(vj_mask, v_p[nbr_loc], 0.0)
         y_p = (
-            jnp.einsum("nab,nb->na", D, v_p)
-            + jnp.einsum("nkab,nkb->na", Bt, vj)
-            + jnp.einsum("nag,g->na", C, v_g)
+            jnp.einsum("nab,nb->na", D, v_p, precision=MATMUL_PRECISION)
+            + jnp.einsum("nkab,nkb->na", Bt, vj, precision=MATMUL_PRECISION)
+            + jnp.einsum("nag,g->na", C, v_g, precision=MATMUL_PRECISION)
             + lam * v_p
         )
         # Perimeter-sparse halo tail.
-        contrib = jnp.einsum("eab,eb->ea", Bt_off, halo[off_halo])
+        contrib = jnp.einsum("eab,eb->ea", Bt_off, halo[off_halo], precision=MATMUL_PRECISION)
         y_p = y_p.at[off_rows].add(contrib)
-        y_g = buf[nb * 6:] + Hg @ v_g + lam * v_g
+        y_g = buf[nb * 6:] + jnp.matmul(Hg, v_g, precision=MATMUL_PRECISION) + lam * v_g
         return y_p, y_g
 
     def pre(r_p, r_g):
-        return jnp.einsum("nab,nb->na", Dinv, r_p), Hginv @ r_g
+        return (
+            jnp.einsum("nab,nb->na", Dinv, r_p, precision=MATMUL_PRECISION),
+            jnp.matmul(Hginv, r_g, precision=MATMUL_PRECISION),
+        )
 
     def dot(a_p, a_g, b_p, b_g):
         # v_g is replicated: add its contribution once (no psum).
-        return jax.lax.psum(jnp.sum(a_p * b_p), axis) + jnp.dot(a_g, b_g)
+        return jax.lax.psum(jnp.sum(a_p * b_p), axis) + jnp.dot(
+            a_g, b_g, precision=MATMUL_PRECISION
+        )
 
     def dots_rz_rr(r_p, r_g, z_p, z_g):
         # (r.z, r.r) in one psum.
         red = jax.lax.psum(
             jnp.stack([jnp.sum(r_p * z_p), jnp.sum(r_p * r_p)]), axis
         )
-        return red[0] + jnp.dot(r_g, z_g), red[1] + jnp.dot(r_g, r_g)
+        return (
+            red[0] + jnp.dot(r_g, z_g, precision=MATMUL_PRECISION),
+            red[1] + jnp.dot(r_g, r_g, precision=MATMUL_PRECISION),
+        )
 
     b_p, b_g = -g_p, -g_g
     x_p = jnp.zeros_like(b_p)
@@ -359,7 +360,7 @@ def make_halo_step(mesh: Mesh, cam_kind, data, hyper, spec, plan_arrays,
     pcg = functools.partial(
         _pcg_halo_local, axis=axis, cg_iters=cg_iters, rtol=cg_rtol
     )
-    sharded_pcg = _shard_map(
+    sharded_pcg = jax.shard_map(
         pcg,
         mesh=mesh,
         in_specs=(row, row, row, rep, row, rep,      # D Bt C Hg g_p g_g
@@ -510,8 +511,8 @@ def solve_pair_halo_global(
 ):
     """Cross-process ``solve_pair_halo``: the points mesh spans every device
     of every process (``multihost.points_submesh``), so the per-matvec
-    boundary-row psum rides ICI within a host and DCN between hosts --
-    SURVEY.md §7.7's DCN-spanning landmark sharding.
+    boundary-row psum crosses the network between hosts (SURVEY.md §7.7's
+    host-spanning landmark sharding).
 
     Every process must call with the SAME host-side (data, state0) (the
     plan is deterministic, so all processes compute identical layouts).

@@ -2,35 +2,38 @@
 
 The reference is a single OS process (SURVEY.md section 2 "Parallelism:
 none"); multi-host scale-out is a new capability of this framework
-(SURVEY.md section 7 step 7: "jax.distributed initialization + collectives
-... over ICI within a slice and DCN across hosts").
+(SURVEY.md section 7 step 7: "jax.distributed initialization + collectives"
+within a host and across hosts).
 
 Topology model
 --------------
-Within one host/slice, devices talk over ICI (fast, ~100s of GB/s); between
-hosts, over DCN (slow, ~10s of GB/s). The two workload axes map onto that
-asymmetry naturally:
+On GPUs each process owns its own cards: a process started per card (or per
+group of cards) passes ``local_device_ids`` to ``jax.distributed.initialize``
+so no two processes open the same card. Cards of one host talk over NVLink
+(fast); hosts talk over the network (slower). The two workload axes map onto
+that asymmetry naturally:
 
 - the PAIR axis (independent keyframe pairs, zero cross-pair math) goes
-  ACROSS hosts -- DCN carries no steady-state traffic at all;
+  ACROSS processes/hosts -- the network carries no steady-state traffic;
 - the LANDMARK/points axis (per-matvec packed-tangent exchange + CG psums,
-  see ``parallel/dist.py``) stays WITHIN a host on ICI.
+  see ``parallel/dist.py``) stays WITHIN a process's local devices.
 
 ``multihost_mesh`` builds exactly that mesh: axis "pairs" strides over
-processes (DCN-minor in communication volume), axis "points" over each
-process's local devices (ICI-major).
+processes, axis "points" over each process's local devices. One process
+driving all the cards of one host needs none of this: a 1-D mesh over
+``jax.devices()`` (``dist.make_mesh``) covers it.
 
 Launch (one command per host/process)::
 
     TIDS_COORDINATOR=host0:8476 TIDS_NUM_PROCESSES=4 TIDS_PROCESS_ID=$RANK \
         python your_driver.py
 
-with ``initialize()`` called before any other JAX API. On TPU pods the three
-variables can be omitted -- ``jax.distributed.initialize`` auto-detects the
-cluster. CPU smoke-testing uses the same path with
-``XLA_FLAGS=--xla_force_host_platform_device_count=K`` per process
-(tests/test_multihost.py spawns 2 such processes; ``__graft_entry__.
-dryrun_multiprocess`` packages it).
+with ``initialize()`` called before any other JAX API. Nothing detects a
+cluster by itself here: give the coordinator address, process count and
+process id (variables or arguments). CPU smoke-testing uses the same path
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=K`` and
+``JAX_PLATFORMS=cpu`` per process (tests/test_multihost.py spawns 2 such
+processes; ``__graft_entry__.dryrun_multiprocess`` packages it).
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ def initialize(coordinator: str | None = None,
 
     Arguments fall back to the ``TIDS_COORDINATOR`` / ``TIDS_NUM_PROCESSES``
     / ``TIDS_PROCESS_ID`` environment variables, and from there to JAX's own
-    cluster auto-detection (TPU pod metadata, SLURM, ...). Safe to call on a
-    single process with no configuration at all (no-op initialization).
+    cluster auto-detection (SLURM, ...). Safe to call on a single process
+    with no configuration at all (no-op initialization).
     """
     coordinator = coordinator or os.environ.get(ENV_COORDINATOR)
     if num_processes is None and os.environ.get(ENV_NUM_PROCESSES):
@@ -73,8 +76,8 @@ def initialize(coordinator: str | None = None,
 
 
 def multihost_mesh() -> Mesh:
-    """2-D ("pairs", "points") mesh: pairs across processes (DCN), points
-    within each process's local devices (ICI).
+    """2-D ("pairs", "points") mesh: pairs across processes, points within
+    each process's local devices.
 
     Device order: ``jax.devices()`` sorted by (process_index, device id), so
     row p of the mesh is exactly process p's devices and the "points" axis
@@ -93,7 +96,7 @@ def multihost_mesh() -> Mesh:
 
 def points_submesh() -> Mesh:
     """1-D points mesh over ALL global devices (landmark sharding that spans
-    hosts -- the halo exchange then rides DCN between hosts; use only when a
+    hosts -- the halo exchange then crosses the network; use only when a
     single pair is too large for one host)."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return Mesh(np.array(devs), (dist.POINTS_AXIS,))

@@ -80,7 +80,7 @@ def main() -> int:
     # "baseline": partitioner-lowered all-gather solve
     # (dist.solve_pair_distributed); "halo": the production Morton/halo
     # shard_map PCG (halo.solve_pair_halo_global) whose boundary-row psum
-    # crosses the process boundary over DCN.
+    # crosses the process boundary.
     mode = os.environ.get("TIDS_WORKER_MODE") or (
         sys.argv[1] if len(sys.argv) > 1 else "baseline"
     )

@@ -63,6 +63,9 @@ class SimulationResult:
     # Populated map layer: dual points + observations + refined global SE3
     # (Mapping.cc:183-247, Map.cc:323-343).
     world_map: object = None
+    # Whether the rigid-scene hypothesis replaced the deformable solution
+    # (models/rigid.py via outer.deformation_optimization).
+    rigid_accepted: bool = False
 
 
 class SimulationPipeline:
@@ -148,9 +151,22 @@ class SimulationPipeline:
         journal_path: Optional[str] = None,
         echo: bool = False,
     ) -> SimulationResult:
+        orig, moved = csvio.load_point_pairs(original_file, moved_file)
+        return self.run_points(orig, moved, journal_path=journal_path, echo=echo)
+
+    def run_points(
+        self,
+        orig: np.ndarray,
+        moved: np.ndarray,
+        journal_path: Optional[str] = None,
+        echo: bool = False,
+    ) -> SimulationResult:
+        """``run`` on ground-truth point pairs already in memory ([N, 3] each,
+        e.g. from ``harness.create_data.generate_points``)."""
         cfg = self.cfg
         rng = np.random.default_rng(self.seed)
-        orig, moved = csvio.load_point_pairs(original_file, moved_file)
+        orig = np.asarray(orig, dtype=np.float64)
+        moved = np.asarray(moved, dtype=np.float64)
         T1w, T2w = self._poses(moved[0])
 
         kp1, kp2, d1, d2 = self._simulate_observations(orig, moved, T1w, T2w, rng)
@@ -293,4 +309,5 @@ class SimulationPipeline:
             n_map_points=2 * n_valid,
             parallax_deg=parallax,
             world_map=wmap,
+            rigid_accepted=bool(result.rigid_accepted),
         )

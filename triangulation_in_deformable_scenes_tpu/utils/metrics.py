@@ -208,8 +208,8 @@ def relative_map_errors(T1w, T2w, p1, p2, s1, s2, d1, d2, valid, Rg, tg) -> Rela
     p2v = np.asarray(p2)[valid]
     ctx = mesh_ops.build_mesh_context(p1v)
 
-    # Host-side numpy (metrics run once per round; jit compiles for every new
-    # mesh degree would dominate the wall time on TPU).
+    # Host-side numpy (metrics run once per round; a jit compile for every
+    # new mesh degree would dominate the wall time).
     j_safe = np.maximum(ctx.nbr, 0)
     mask = ctx.nbr_mask
     e1_edges = p1v[:, None, :] - p1v[j_safe]

@@ -1,8 +1,8 @@
 """Headless raster drawing primitives + PNG IO (pure numpy + stdlib).
 
 The reference's visualizers render through OpenCV ``highgui`` windows
-(``Modules/Visualization/FrameVisualizer.cc``); a TPU training/eval host is
-headless, so this framework renders to numpy images and writes PNG files
+(``Modules/Visualization/FrameVisualizer.cc``); an accelerator host is
+usually headless, so this framework renders to numpy images and writes PNG files
 instead. Zero hard third-party dependencies: PNG encoding uses ``zlib`` +
 ``struct`` from the stdlib.
 """

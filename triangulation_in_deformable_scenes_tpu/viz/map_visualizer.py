@@ -8,7 +8,7 @@ camera-to-point rays (``MapVisualizer::drawRays``) -- is exported as
 
 - a PLY point/edge cloud any external viewer opens (``export_ply``), and
 - an orthographic PNG snapshot rendered with the stdlib rasterizer
-  (``snapshot``), matplotlib-free so it runs on headless TPU hosts.
+  (``snapshot``), matplotlib-free so it runs on headless hosts.
 
 Disabled instances are no-ops, mirroring the ``MapVisualizer.showScene``
 flag (``Settings.cc:155-189``).
